@@ -1,6 +1,6 @@
 """Beneš–Bernoulli Monte-Carlo filtering sweep (flagship experiment).
 
-TPU-native counterpart of reference ``dardel/benes_bernoulli/mf.py`` +
+Batched counterpart of reference ``dardel/benes_bernoulli/mf.py`` +
 ``run_benes_bernoulli_mf.sh``: instead of one OS process per trial, the
 whole ensemble runs as one batched scan; N / mode / closure sweeps are
 plain loops over jitted programs.  Trials are processed in resumable
@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from experiments import common
+from mfs_tpu.ops.eigh import ENGINES
 
 
 def cell_name(N, mode, closure, seed, eigh_impl="refined"):
@@ -55,7 +56,7 @@ def run_cell(N, mode, closure, trials, seed, chunk=None, stable=True,
         "moments": 1, "means": 1, "variances": 1, "scales": 1, "nell": 0,
     }
 
-    def make_run(impl, device=None, quad_jitter=0.0):
+    def make_run(impl, device=None):
         def run(ys_in):
             if device is not None:
                 ys_in = jax.device_put(jnp.asarray(ys_in), device)
@@ -65,11 +66,11 @@ def run_cell(N, mode, closure, trials, seed, chunk=None, stable=True,
                 else contextlib.nullcontext()
             )
             with ctx:
-                return _run_inner(impl, ys_in, quad_jitter)
+                return _run_inner(impl, ys_in)
 
         return run
 
-    def _run_inner(impl, ys_in, quad_jitter=0.0):
+    def _run_inner(impl, ys_in):
             n = ys_in.shape[1]
             if mode == "raw":
                 rms0 = jnp.broadcast_to(ic.rms, (n, 2 * N))
@@ -77,7 +78,6 @@ def run_cell(N, mode, closure, trials, seed, chunk=None, stable=True,
                     lambda r0, y: moment_filter_rms(
                         trans.rms, model.measurement_cond_pdf, r0, y,
                         stable=stable, eigh_impl=impl,
-                        quad_jitter=quad_jitter
                     )
                 )
                 (mss, nell), dt_run = common.timed_call(fn, rms0, ys_in)
@@ -91,7 +91,7 @@ def run_cell(N, mode, closure, trials, seed, chunk=None, stable=True,
                     lambda c0, y: moment_filter_cms(
                         trans.cms, trans.mean, model.measurement_cond_pdf, c0,
                         ic.mean * jnp.ones(n), y, stable=stable,
-                        eigh_impl=impl, quad_jitter=quad_jitter
+                        eigh_impl=impl,
                     )
                 )
                 (mss, means, nell), dt_run = common.timed_call(fn, cms0, ys_in)
@@ -105,7 +105,6 @@ def run_cell(N, mode, closure, trials, seed, chunk=None, stable=True,
                         s0, ic.mean * jnp.ones(n),
                         jnp.sqrt(ic.variance) * jnp.ones(n),
                         y, stable=stable, eigh_impl=impl,
-                        quad_jitter=quad_jitter
                     )
                 )
                 (mss, means, scales, nell), dt_run = common.timed_call(
@@ -145,20 +144,12 @@ def run_cell(N, mode, closure, trials, seed, chunk=None, stable=True,
 
         fast = timed(make_run(eigh_impl))
         if rescue:
-            # Tiered robustness: fast fused-kernel pass on the TPU,
-            # then (for the pallas engine) the *jittered* fused kernel
-            # on only the diverged trials — Gram-regularised double-f32,
-            # measured to rescue 265/265 of the N=15 losses where the
-            # host f64 tier manages 249/265 (tools/PROBE_RESCUE3.json)
-            # — and finally native-f64 LAPACK eigh + LDL PD-completion
-            # on the host CPU for any residue (see
+            # Robustness: re-run only the diverged trials with native-f64
+            # LAPACK eigh + LDL PD-completion on the host CPU (see
             # ``mfs_tpu.parallel.ensemble.rescue_diverged``).
-            tiers = []
-            if eigh_impl == "pallas":
-                tiers.append(timed(make_run("pallas", quad_jitter=1e-8)))
-            tiers.append(timed(make_run("xla", device=jax.devices("cpu")[0])))
+            robust = timed(make_run("xla", device=jax.devices("cpu")[0]))
             out, finite, rescued = rescue_diverged(
-                fast, tiers, ys, finite_fn, trial_axes
+                fast, robust, ys, finite_fn, trial_axes
             )
         else:
             out = fast(ys)
@@ -190,7 +181,7 @@ def main():
     p.add_argument("--no-rescue", action="store_true")
     p.add_argument("--chunk", type=int, default=None)
     p.add_argument("--eigh-impl", default="refined",
-                   choices=["refined", "xla", "jacobi", "pallas"])
+                   choices=list(ENGINES))
     args = p.parse_args()
     common.setup(args)
 

@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 
 from experiments import common
+from mfs_tpu.ops.eigh import ENGINES
 
 DT, T = 1e-1, 100
 ELL, SIGMA, XI = 1.0, 0.5, 1.0
@@ -66,7 +67,7 @@ def main():
     # path fails identically), so ``central`` is the headline mode.
     p.add_argument("--mode", choices=["raw", "central"], default="central")
     p.add_argument("--eigh-impl", default="refined",
-                   choices=["refined", "xla", "jacobi", "pallas", "auto"])
+                   choices=list(ENGINES))
     p.add_argument("--pf-particles", type=int, nargs="*", default=[],
                    help="also run the particle-filter convergence foil at "
                         "these particle counts (reference "

@@ -1,7 +1,7 @@
 """3D Lotka–Volterra food-chain filtering: moment filter vs GHF/EKF.
 
-The first ≥3-dimensional end-to-end deployment of the N-D machinery
-(VERDICT r04 item 3): the reference's multi-index/quadrature code is
+The first ≥3-dimensional end-to-end deployment of the N-D machinery:
+the reference's multi-index/quadrature code is
 general-d (``mfs/multi_dims/multi_indices.py:25-58``,
 ``mfs/multi_dims/quadratures.py:120-178``) but its experiments stop at
 d = 2.  Here the 3-species stochastic Lotka–Volterra chain
@@ -10,10 +10,6 @@ d = 2.  Here the 3-species stochastic Lotka–Volterra chain
 quadrature: s = C(N-1+3, 3) basis polynomials, s^3 nodes per step) and
 scored against the simulated trajectory, with GHF/EKF baselines on
 identical trials.
-
-At d = 3 the fused ND Pallas kernel covers N = 2 (s = 4, fused) and
-N = 3 (s = 10, fused); N = 4 (s = 20) routes through the monolithic
-K-builder — all under ``eigh_impl="auto"``.
 
 Usage:
     python experiments/lotka_volterra_3d.py --Ns 2 3 4 --trials 64 \
@@ -29,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from experiments import common
+from mfs_tpu.ops.eigh import ENGINES
 
 
 def run_mf(N, model_of, trials, T, eigh_impl, seed, chunk_T):
@@ -86,8 +83,8 @@ def main():
     p.add_argument("--chunk-T", type=int, default=50)
     p.add_argument("--methods", nargs="+", default=["mf", "ghf", "ekf"],
                    choices=["mf", "ghf", "ekf"])
-    p.add_argument("--eigh-impls", nargs="+", default=["auto"],
-                   choices=["auto", "refined", "pallas", "jacobi", "xla"])
+    p.add_argument("--eigh-impls", nargs="+", default=["refined"],
+                   choices=list(ENGINES))
     p.add_argument("--gh", type=int, default=7)
     p.add_argument("--summary", action="store_true")
     args = p.parse_args()
@@ -196,7 +193,7 @@ def main():
             protocol=(
                 f"3-species stochastic Lotka-Volterra food chain "
                 f"(d=3), T={args.T}, central mode, poly-TME-2, f64 "
-                f"I/O, single v5e chip; moment filter (tensor-product "
+                f"I/O, {common.hardware()}; moment filter (tensor-product "
                 f"quadrature, s^3 nodes) vs GHF(gh={args.gh}) / EKF on "
                 f"identical trials; abs filtering-mean error vs the "
                 f"simulated trajectory. First d=3 deployment — the "

@@ -1,11 +1,11 @@
 """Render SUMMARY_reference_parity.json as PARITY.md.
 
 One markdown table per (mode, closure): per N, side-by-side divergence
-counts and CF-distance / mean-error metrics for our TPU engine vs the
+counts and CF-distance / mean-error metrics for our engine vs the
 reference's own ``moment_filter_*`` on identical trials, plus the
-ours-beats-or-matches verdict per cell (the acceptance criterion of
-VERDICT r02 item 1: ours' divergence <= reference's and error <= its
-error at every N, modulo the paired-metric noise floor).
+ours-beats-or-matches verdict per cell (ours' divergence <=
+reference's and error <= its error at every N, modulo the
+paired-metric noise floor).
 """
 import sys, os
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -38,17 +38,17 @@ def main():
         groups.setdefault((r["mode"], r["closure"]), []).append(r)
 
     lines = [
-        "# PARITY — ours (TPU, fused Pallas engine) vs the reference's own filters",
+        f"# PARITY — ours ({data.get('hardware', 'device not recorded')}) "
+        "vs the reference's own filters",
         "",
         "Protocol: Beneš–Bernoulli, T=100, TME order 3, 1000 Monte-Carlo",
         "trials per cell, **identical simulated trajectories and",
         "measurements for both engines** (the reference's",
-        "`moment_filter_{rms,cms,scms}` imported from `/root/reference` and",
-        "run on CPU f64 with its experiment defaults, `stable=False`; ours on",
-        "one TPU v5e chip, `stable=True` + fused double-f32 Pallas",
-        "quadrature, with the two-tier divergence rescue of",
-        "`mfs_tpu.parallel.ensemble.rescue_diverged`: trials the fused",
-        "kernel loses are re-run through native-f64 LAPACK eigh + LDL",
+        "`moment_filter_{rms,cms,scms}` imported from a checkout of the",
+        "reference and run on CPU f64 with its experiment defaults,",
+        "`stable=False`; ours with `stable=True` and the tiered divergence",
+        "rescue of `mfs_tpu.parallel.ensemble.rescue_diverged`: trials the",
+        "first pass loses are re-run through LAPACK f64 eigh + LDL",
         "PD-completion — `resc` counts them).  Both are scored against the",
         "shared brute-force grid",
         "truth with the reference's own characteristic-function metrics",

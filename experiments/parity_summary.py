@@ -1,7 +1,7 @@
 """Side-by-side scoring of ours vs the reference's filter engine.
 
 Consumes the npz artifacts of ``experiments/benes_bernoulli.py``
-(ours, TPU) and ``experiments/reference_parity.py`` (the reference's
+(ours) and ``experiments/reference_parity.py`` (the reference's
 own ``moment_filter_*`` on identical trials, CPU f64), scores BOTH
 against the shared brute-force grid truth with the reference's CF
 metrics (``dardel/benes_bernoulli/compute_errs.py:94-113``), and emits
@@ -138,8 +138,9 @@ def main():
     with open(args.out, "w") as f:
         json.dump(
             dict(
-                protocol="benes_bernoulli N x mode x closure, ours (TPU) vs "
+                protocol="benes_bernoulli N x mode x closure, ours vs "
                          "reference code (CPU f64) on identical trials",
+                hardware=common.hardware(),
                 seed=args.seed, records=records,
             ),
             f, indent=1,

@@ -7,7 +7,7 @@ simulated trajectory, on trials IDENTICAL to the moment-filter sweep
 (``experiments/prey_predator.py``, same seed protocol) so the rows in
 ``SUMMARY_prey_predator.json`` are directly comparable.
 
-TPU-first: GHF/EKF run vmapped over the trial ensemble in one program;
+Batched: GHF/EKF run vmapped over the trial ensemble in one program;
 the PF runs through the batch-first ``bootstrap_filter`` with
 vector-state particles and a per-step mean reduction (no O(T x n)
 trajectory materialisation).  The reference runs one OS process per

@@ -1,11 +1,11 @@
 """Run the REFERENCE's own moment filters on our exact trials.
 
-The parity audit (VERDICT r02 item 1): import
-``mfs.one_dim.filtering.moment_filter_{rms,cms,scms}`` from
-``/root/reference`` and run them — CPU, f64, the reference's own
+The parity audit: import
+``mfs.one_dim.filtering.moment_filter_{rms,cms,scms}`` from a checkout
+of the reference (``--reference``) and run them — CPU, f64, the reference's own
 defaults (``stable=False``, TME order 3 per
 ``dardel/benes_bernoulli/mf.py:21``) — on the *identical* measurement
-sequences the TPU sweep produced (loaded from the
+sequences our sweep produced (loaded from the
 ``experiments/benes_bernoulli.py`` npz files), so divergence counts and
 accuracy can be compared side by side with nothing varying but the
 filter engine.  The transition-moment callables are this repo's
@@ -16,8 +16,8 @@ validated against exact LTI discretisation in
 model inputs.
 
 Run AFTER the ours-side sweep:
-    python experiments/reference_parity.py --Ns 2 .. 15 --modes raw central scaled \
-        --closures tme tme-normal --trials 1000 --impl-suffix _pallas
+    python experiments/reference_parity.py --reference PATH/TO/mfs \
+        --Ns 2 .. 15 --modes raw central scaled --closures tme tme-normal --trials 1000
 
 Chunk-resumable per cell; writes ``refcode_N{N}_{mode}_{closure}_s{seed}.npz``.
 """
@@ -30,12 +30,10 @@ import jax.numpy as jnp
 from experiments import common
 from experiments.benes_bernoulli import cell_name
 
-REF_PATH = "/root/reference"
 
-
-def _ref_filters():
-    if REF_PATH not in sys.path:
-        sys.path.insert(0, REF_PATH)
+def _ref_filters(ref_path):
+    if ref_path not in sys.path:
+        sys.path.insert(0, ref_path)
     from mfs.one_dim.filtering import (  # noqa: E402
         moment_filter_cms,
         moment_filter_rms,
@@ -45,12 +43,12 @@ def _ref_filters():
     return moment_filter_rms, moment_filter_cms, moment_filter_scms
 
 
-def run_ref_cell(N, mode, closure, trials, seed, chunk=None, tme_order=3,
-                 impl_suffix="", stable=False):
+def run_ref_cell(ref_path, N, mode, closure, trials, seed, chunk=None,
+                 tme_order=3, impl_suffix="", stable=False):
     from mfs_tpu.models import benes_bernoulli
     from mfs_tpu.sde import sde_cond_moments_tme, sde_cond_moments_tme_normal
 
-    ref_rms, ref_cms, ref_scms = _ref_filters()
+    ref_rms, ref_cms, ref_scms = _ref_filters(ref_path)
     chunk = chunk or trials
     model = benes_bernoulli(N=N)
     factory = (
@@ -115,12 +113,14 @@ def run_ref_cell(N, mode, closure, trials, seed, chunk=None, tme_order=3,
 
 def main():
     p = common.base_parser(__doc__)
+    p.add_argument("--reference", required=True,
+                   help="checkout of the reference library (holds mfs/)")
     p.add_argument("--Ns", type=int, nargs="+", default=list(range(2, 16)))
     p.add_argument("--modes", nargs="+", default=["raw", "central", "scaled"])
     p.add_argument("--closures", nargs="+", default=["tme", "tme-normal"])
     p.add_argument("--tme-order", type=int, default=3)
     p.add_argument("--chunk", type=int, default=250)
-    p.add_argument("--impl-suffix", default="", help="ours-side npz suffix, e.g. _pallas")
+    p.add_argument("--impl-suffix", default="", help="ours-side npz suffix")
     p.add_argument("--stable", action="store_true",
                    help="reference stable=True (its experiment default is False)")
     args = p.parse_args()
@@ -130,7 +130,7 @@ def main():
         for closure in args.closures:
             for N in args.Ns:
                 out, path = run_ref_cell(
-                    N, mode, closure, args.trials, args.seed,
+                    args.reference, N, mode, closure, args.trials, args.seed,
                     chunk=args.chunk, tme_order=args.tme_order,
                     impl_suffix=args.impl_suffix, stable=args.stable,
                 )

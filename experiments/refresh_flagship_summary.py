@@ -1,7 +1,7 @@
 """Regenerate ``SUMMARY_benes_bernoulli.json`` from the parity records.
 
 The flagship per-N accuracy table (ours-side: central mode, tme-normal
-closure, fused Pallas engine + divergence rescue) is a projection of
+closure, default engine + divergence rescue) is a projection of
 ``SUMMARY_reference_parity.json``; this keeps the two committed
 artifacts consistent after any re-scoring.
 """
@@ -22,7 +22,7 @@ def main():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--mode", default="central")
     p.add_argument("--closure", default="tme-normal")
-    p.add_argument("--impl", default="pallas")
+    p.add_argument("--impl", default="refined")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--summary", default=os.path.join(
         here, "SUMMARY_reference_parity.json"))
@@ -52,15 +52,15 @@ def main():
     out = dict(
         protocol=(
             f"Benes-Bernoulli, T=100, {args.mode} mode, TME-3 "
-            f"{args.closure} closure, fused Pallas quadrature "
-            "(eigh_impl=pallas) + two-tier divergence rescue, f64 I/O, "
+            f"{args.closure} closure, eigh_impl={args.impl} + "
+            "divergence rescue on the host CPU, f64 I/O, "
             "1000 MC trials, errors vs brute-force grid truth (grid 2000 "
             "pts on [-6,6], chapman-tme-3, 100 substeps; CF distances on "
             "z in [-2,2], 400 pts), paired with the reference engine on "
             "the trials where both stayed finite (see "
-            "SUMMARY_reference_parity.json / PARITY.md)"
+            "SUMMARY_reference_parity.json)"
         ),
-        hardware="single TPU v5e chip (filters); host CPU f64 (grid truth + rescue)",
+        hardware=f"{common.hardware()} (filters); host CPU f64 (grid truth + rescue)",
         rows=rows,
     )
     with open(args.out, "w") as f:

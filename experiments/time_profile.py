@@ -4,7 +4,7 @@ Counterpart of reference ``dardel/time_profile/{mf,ghf,pf}.py`` and
 ``run_time_profile.sh``: per method, exclude the compile run, time
 jitted calls with ``block_until_ready``, and report per-trial cost.
 The moment filter additionally reports the batched-ensemble throughput
-(the TPU execution model); GHF and the bootstrap PF are timed both
+(the batched execution model); GHF and the bootstrap PF are timed both
 singly and vmapped over trials for a like-for-like comparison.
 """
 import sys, os
@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 
 from experiments import common
+from mfs_tpu.ops.eigh import ENGINES
 
 
 def main():
@@ -25,7 +26,7 @@ def main():
     p.add_argument("--particles", type=int, default=10_000)
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--eigh-impl", default="refined",
-                   choices=["refined", "xla", "jacobi", "pallas"])
+                   choices=list(ENGINES))
     args = p.parse_args()
     common.setup(args)
 
@@ -60,7 +61,7 @@ def main():
     mf = jax.jit(
         lambda r0, y: moment_filter_rms(
             trans.rms, model.measurement_cond_pdf, r0, y,
-            stable=(args.eigh_impl != "pallas"), eigh_impl=args.eigh_impl,
+            stable=True, eigh_impl=args.eigh_impl,
         )
     )
     t_mf = timeit(mf, rms0, ys)

@@ -3,19 +3,17 @@
 The moment-filtering pipeline factorises Hankel/Gram matrices whose
 condition number grows roughly exponentially with the moment order
 ``2N - 1``.  The reference library (reference: ``dardel/*/mf.py:16``)
-simply flips ``jax_enable_x64`` on and runs on CPU.  On TPU, f64 is
-software-emulated: elementwise ops, reductions, and matmuls are true
-double precision (verified: errors ~1e-15), while some XLA linalg
-decompositions fall back to lower internal precision.  mfs-tpu therefore
-
-1. runs the moment core in f64 by default (``enable_x64()``), and
-2. routes the per-step eigendecomposition through in-repo batched
-   solvers (``mfs_tpu.ops.eigh.eigh_batched`` / ``eigh_refined``) that
-   only use elementwise ops and matmuls, retaining true f64 on TPU.
+simply flips ``jax_enable_x64`` on and runs on CPU.  mfs-tpu does the
+same on the GPU: the moment core runs in f64 by default
+(``enable_x64()``), where no matrix product is computed in TF32.  The
+default eigensolver engine seeds with an f32 ``eigh`` and polishes in
+f64 (``mfs_tpu.ops.eigh.eigh_refined``).
 
 For speed experiments the whole pipeline also runs in f32 together with
 the scaled-central moment mode; see ``mfs_tpu.one_dim.filtering``.
 """
+import os
+
 import jax
 
 
@@ -33,3 +31,25 @@ def default_float():
     import jax.numpy as jnp
 
     return jnp.zeros(0).dtype
+
+
+# The compile cache's home when ``JAX_COMPILATION_CACHE_DIR`` is unset:
+# one fixed directory in the checkout (listed in ``.gitignore``).  The
+# path is part of the cache key, so it must not vary between runs.
+DEFAULT_COMPILE_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache; return its directory.
+
+    If ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already uses that
+    directory and nothing is set here.  Otherwise the cache goes to
+    ``DEFAULT_COMPILE_CACHE_DIR``.
+    """
+    env_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env_dir:
+        return env_dir
+    jax.config.update("jax_compilation_cache_dir", DEFAULT_COMPILE_CACHE_DIR)
+    return DEFAULT_COMPILE_CACHE_DIR

@@ -1,12 +1,9 @@
-"""Batch-of-problems L-BFGS with per-trial state (TPU-native MLE driver).
+"""Batch-of-problems L-BFGS with per-trial state (batched MLE solver).
 
 Solves B independent small minimisations simultaneously where the
-objective is *batch-first*: ``f(P) -> (B,)`` with ``P (B, p)``.  This
-is the driver for fused-kernel moment-filter MLE — the Pallas
-quadrature takes the Monte-Carlo batch in its lane dimension, so the
-objective must be called ONCE for all trials, not vmapped per trial
-(``jax.vmap`` of the kernel would pad every single-trial call to a
-full lane block).
+objective is *batch-first*: ``f(P) -> (B,)`` with ``P (B, p)``.  The
+moment filters are batch-first by construction, so the objective is
+called ONCE for all trials rather than vmapped per trial.
 
 Everything is vectorised over the trial axis:
 

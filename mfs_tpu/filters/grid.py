@@ -8,8 +8,8 @@ Chapman–Kolmogorov prediction
 
 is a *precomputed transition-kernel matrix times the density vector*:
 the conditional mean/scale at every grid point are compilation
-constants, so each integration substep is one (n, n) matmul — the
-MXU-native formulation — instead of re-evaluating the Normal pdf under
+constants, so each integration substep is one (n, n) matmul —
+instead of re-evaluating the Normal pdf under
 a vmapped trapezoid at every substep.
 """
 from typing import Callable

@@ -6,7 +6,7 @@ continuous resampler that makes the particle likelihood differentiable
 (Malik–Pitt / Corenflos et al.).  Functional parity with reference
 ``mfs/classical_filters_smoothers/resampling.py``, redesigned so every
 kernel takes ``(..., n)`` weights and returns ``(..., n)`` indices: one
-call resamples a whole ensemble of Monte-Carlo trials (the TPU
+call resamples a whole ensemble of Monte-Carlo trials (the batched
 replacement for the reference's one-process-per-trial protocol), with
 independent stratification noise per trial drawn from a single key.
 """

@@ -97,7 +97,7 @@ def bootstrap_filter(
 
     Reference: ``mfs/classical_filters_smoothers/smc.py:26-84``
     (single-trial; the trial axes and the key split protocol are the
-    TPU batch-first redesign).
+    batch-first redesign).
     """
     key_init, key_scan = jax.random.split(key)
 

@@ -1,7 +1,7 @@
 """Canonical 1D test models (counterpart of reference ``mfs/one_dim/ss_models.py``).
 
 Batch-first: the returned simulators generate whole Monte-Carlo
-ensembles in one call — the TPU replacement for the reference's
+ensembles in one call — the batched replacement for the reference's
 one-process-per-trial Slurm protocol
 (reference: ``dardel/run_benes_bernoulli_mf.sh:26-31``).
 """

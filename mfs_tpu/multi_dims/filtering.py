@@ -46,7 +46,7 @@ def moment_filter_nd_rms(
     moments_partial_order: Tuple[np.ndarray, np.ndarray],
     rms0: Array,
     stable: bool = False,
-    eigh_impl: str = "auto",
+    eigh_impl: str = "refined",
 ) -> Tuple[Array, Array]:
     r"""N-D moment filter, raw-moment representation.
 
@@ -103,7 +103,7 @@ def moment_filter_nd_cms(
     cms0: Array,
     mean0: Array,
     stable: bool = False,
-    eigh_impl: str = "auto",
+    eigh_impl: str = "refined",
     predict_fn: Optional[Callable] = None,
 ) -> Tuple[Array, Array, Array]:
     r"""N-D moment filter, central-moment representation.
@@ -171,7 +171,7 @@ def moment_filter_nd_scms(
     mean0: Array,
     scale0: Array,
     stable: bool = False,
-    eigh_impl: str = "auto",
+    eigh_impl: str = "refined",
     predict_fn: Optional[Callable] = None,
 ) -> Tuple[Array, Array, Array, Array]:
     r"""N-D moment filter, scaled-central representation.

@@ -1,7 +1,7 @@
 """Multidimensional moment computation and transition-moment factories.
 
 Counterpart of reference ``mfs/multi_dims/moments.py``, redesigned for
-TPU:
+batched execution on an accelerator:
 
 - **Kan–Magnus moments via static term tables.**  The Kan (2008)
   formulas are finite sums over an enumeration that depends only on the
@@ -132,7 +132,7 @@ def raw_moments_mvn_kan_all(mean: Array, cov: Array, multi_indices) -> Array:
         * _int_pow(dot, m_exps, max_exp)
     )
     # Segment-sum over the flat term axis via a static one-hot matrix
-    # (t x z is small; einsum keeps it on the MXU and differentiable).
+    # (t x z is small; einsum keeps it a matmul and differentiable).
     onehot = np.zeros((len(seg_ids), z))
     onehot[np.arange(len(seg_ids)), seg_ids] = 1.0
     return jnp.einsum("...t,tz->...z", terms, jnp.asarray(onehot, quad.dtype))

@@ -39,7 +39,7 @@ the weight contraction moves *inside* the tower,
 
 so the TME tower is applied to ONE ``z_ext``-vector per trial instead
 of per node: order × (B, z_ext) × (z_ext, n_ops·z_ext) GEMMs per step,
-MXU-shaped, no autodiff.  Truncation at the extended degree
+plain matmuls, no autodiff.  Truncation at the extended degree
 ``2N−1 + order·rise`` is exact for every entry the filter reads (the
 coefficient chain from a degree-(2N−1) monomial can't leave the
 extended basis within ``order`` applications).

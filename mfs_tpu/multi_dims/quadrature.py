@@ -9,9 +9,10 @@ node combination c = (c_1, ..., c_d) is
 
     w(c) = v_1(c_1)[0] * prod_i <v_i(c_i), v_{i+1}(c_{i+1})> * v_d(c_d)[0].
 
-TPU-first deltas: arbitrary leading batch axes; the chained inner
-products are d-1 batched (s, s) Gram matmuls + static Cartesian-index
-gathers, instead of materialising all n^d eigenvector combinations.
+Deltas from the reference: arbitrary leading batch axes; the chained
+inner products are d-1 batched (s, s) Gram matmuls + static
+Cartesian-index gathers, instead of materialising all n^d eigenvector
+combinations.
 """
 import itertools
 from functools import lru_cache
@@ -21,7 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mfs_tpu.ops.eigh import eigh_batched, eigh_refined, eigh_xla
+from mfs_tpu.ops.eigh import eigh
 from mfs_tpu.typings import Array
 from mfs_tpu.utils.linalg import ldl_chol
 
@@ -74,15 +75,10 @@ def moment_quadrature_nd(
     sort_nodes, stable, eigh_impl : as in the 1D quadrature.  The d
         multiplication operators have *structurally repeated*
         eigenvalues (each coordinate value appears for several basis
-        polynomials); the default "refined" path handles them by
-        seeding with an f32 XLA eigh (the TPU's emulated-f64 eigh
-        returns NaN on such clusters) and finishing with true-f64
-        Jacobi polish sweeps — within an exactly-degenerate cluster
-        any orthonormal basis gives the same chained-inner-product
-        quadrature, so the arbitrary in-cluster rotation is harmless.
-        Measured on v5e (prey-predator N=3, B=256, T=100): 1.7x faster
-        than the pure-Jacobi fallback at nell agreement ~3e-11; use
-        ``eigh_impl="jacobi"`` to force the identity-seeded solver.
+        polynomials).  Within an exactly degenerate cluster any
+        orthonormal basis gives the same chained-inner-product
+        quadrature, so every engine's arbitrary in-cluster rotation is
+        harmless.
 
     Returns
     -------
@@ -94,86 +90,19 @@ def moment_quadrature_nd(
     G = ms[..., inds[0]]  # (..., s, s)
     Hs = ms[..., inds[1:]]  # (..., d, s, s)
 
-    if eigh_impl == "auto":
-        from jax._src.interpreters import batching
-
-        from mfs_tpu.ops.dispatch import resolve_impl_nd
-
-        if isinstance(ms, batching.BatchTracer):
-            # See the 1D twin: a vmapped trial axis is invisible to the
-            # dispatch policy, which then undercounts the batch.
-            import warnings
-
-            warnings.warn(
-                "moment_quadrature_nd(eigh_impl='auto') inside jax.vmap:"
-                " the mapped axis is invisible to the dispatch policy, "
-                "which will undercount the batch. Pass an explicit "
-                "eigh_impl or call the filters batch-first."
-            )
-        batch = int(np.prod(ms.shape[:-1])) if ms.ndim > 1 else 1
-        eigh_impl = resolve_impl_nd(s, batch, d=d)
-    if eigh_impl == "pallas":
-        from mfs_tpu.ops.pallas_quadrature_nd import (
-            MAX_S,
-            nd_eigh_pallas,
-            nd_k_pallas,
-            nd_k_pallas_staged,
-        )
-
-        if s <= MAX_S:
-            # Fully fused double-f32 kernel: equilibrated LDL + solves +
-            # hybrid Jacobi eigenpairs in one VMEM program (completion
-            # is implicit, as in the 1D kernel).
-            vals, vecs = nd_eigh_pallas(ms, inds)
-            if sort_nodes:
-                order = jnp.argsort(vals, axis=-1)
-                vals = jnp.take_along_axis(vals, order, axis=-1)
-                vecs = jnp.take_along_axis(vecs, order[..., None, :], axis=-1)
-        else:
-            # Column-layout kernel for the gather/LDL/solve pipeline
-            # (O(s^2) traced statements — no s gate), then the batched
-            # refined eigensolver: together they cover the large bases
-            # (2D N = 5..7+) the fused kernel's per-entry unrolling
-            # could not reach.  Perturbative polish (polish_sweeps=0):
-            # measured on the real N=7 operators (s=28, 128 lanes) it
-            # is 18x cheaper than 2 f64-emulated Jacobi sweeps
-            # (10.7 vs 193 ms) AND more accurate than 1 sweep (recon
-            # 1.3e-11 vs 1.7e-9) — the Jacobi polish was ~95% of the
-            # whole quadrature's cost at large s.  Beyond the
-            # monolithic program's measured Mosaic compile wall
-            # (s = 28 good, s = 36 crash) the staged multi-call
-            # builder takes over — bounded per-program unrolls push
-            # the Pallas path into the reference's GPU regime
-            # (2D N = 9, s = 45).
-            from mfs_tpu.ops.dispatch import _ND_MAX_S_PALLAS
-
-            if s <= _ND_MAX_S_PALLAS:
-                Ks = nd_k_pallas(ms, inds)
-            else:
-                Ks = nd_k_pallas_staged(ms, inds)
-            vals, vecs = eigh_refined(Ks, sort=sort_nodes)
-    else:
-        R = ldl_chol(G) if stable else jax.lax.linalg.cholesky(G)
-        # Explicitly broadcast over the d multiplication matrices —
-        # triangular_solve does not broadcast singleton batch dims.
-        Rb = jnp.broadcast_to(R[..., None, :, :], Hs.shape)
-        Ks = jax.lax.linalg.triangular_solve(
-            Rb,
-            jax.lax.linalg.triangular_solve(Rb, Hs, left_side=True, lower=True),
-            left_side=False,
-            lower=True,
-            transpose_a=True,
-        )
-        Ks = 0.5 * (Ks + jnp.swapaxes(Ks, -1, -2))
-
-        if eigh_impl == "jacobi":
-            vals, vecs = eigh_batched(Ks, sort=sort_nodes)
-        elif eigh_impl == "xla":
-            vals, vecs = eigh_xla(Ks, sort=sort_nodes)
-        else:
-            # Perturbative polish — see the pallas branch above for the
-            # measured 18x/accuracy justification.
-            vals, vecs = eigh_refined(Ks, sort=sort_nodes)
+    R = ldl_chol(G) if stable else jax.lax.linalg.cholesky(G)
+    # Explicitly broadcast over the d multiplication matrices —
+    # triangular_solve does not broadcast singleton batch dims.
+    Rb = jnp.broadcast_to(R[..., None, :, :], Hs.shape)
+    Ks = jax.lax.linalg.triangular_solve(
+        Rb,
+        jax.lax.linalg.triangular_solve(Rb, Hs, left_side=True, lower=True),
+        left_side=False,
+        lower=True,
+        transpose_a=True,
+    )
+    Ks = 0.5 * (Ks + jnp.swapaxes(Ks, -1, -2))
+    vals, vecs = eigh(Ks, eigh_impl, sort=sort_nodes)
     # vals: (..., d, s); vecs: (..., d, s, s), columns are eigenvectors.
 
     combs = _cartesian_indices(d, s)  # (s^d, d)

@@ -9,24 +9,20 @@ The flagship entry points, counterpart of reference
              measurement likelihood at the nodes; normalised posterior
              moments; accumulate ``nell -= log p(y_k | y_{1:k-1})``.
 
-TPU-first deltas from the reference:
+Deltas from the reference:
 
 - **Batch-first**: all carries and observations may have leading batch
   axes — ``rms0 (..., 2N)``, ``ys (T, ...)``.  One ``lax.scan`` runs
   thousands of Monte-Carlo trials in lockstep; the tiny per-trial
-  linear algebra becomes large batched ops that occupy the TPU.
+  linear algebra becomes large batched ops that occupy the device.
 - Model callables are *elementwise/batched by construction* (see
   ``mfs_tpu.sde.transitions``): no vmap pyramids in the hot loop.
 - ``measurement_cond_pdf(y, x)`` must broadcast elementwise over ``x``
   (all jnp-composed densities do).
-- The per-step eigendecompositions default to ``eigh_impl="auto"``:
-  the measured dispatch policy (``mfs_tpu.ops.dispatch``) — the fused
-  double-f32 Pallas kernel on TPU at production batch sizes, otherwise
-  ``"refined"``: XLA's fast batched eigh (only ~f32-accurate
-  internally on TPU, measured residual ~1e-7 in f64 on v5e) followed
-  by true-f64 cyclic-Jacobi polish sweeps built from elementwise ops
-  and matmuls (which TPU emulates at ~1e-15).  ``"jacobi"`` is the
-  pure in-repo solver, ``"xla"`` the raw XLA one.
+- The per-step eigendecompositions default to ``eigh_impl="refined"``:
+  an f32 XLA eigh seed finished by an f64 perturbative polish
+  (``mfs_tpu.ops.eigh.eigh_refined``).  ``"xla"`` is XLA's eigh in
+  f64, ``"jacobi"`` the in-repo cyclic-Jacobi solver.
 
 Everything is differentiable; the returned ``nell`` is the negative log
 likelihood used for gradient-based parameter estimation.
@@ -63,8 +59,7 @@ def moment_filter_rms(
     rms0: Array,
     ys: Array,
     stable: bool = False,
-    eigh_impl: str = "auto",
-    quad_jitter: float = 0.0,
+    eigh_impl: str = "refined",
 ) -> Tuple[Array, Array]:
     r"""Moment filter with raw-moment representation.
 
@@ -82,6 +77,8 @@ def moment_filter_rms(
     stable : bool
         Use the LDL modified-Cholesky completion inside the quadrature.
     eigh_impl : {"refined", "xla", "jacobi"}
+        Eigensolver engine of the per-step quadratures
+        (``mfs_tpu.ops.eigh.ENGINES``).
 
     Returns
     -------
@@ -94,12 +91,12 @@ def moment_filter_rms(
         rms, nell = carry
 
         weights, nodes = moment_quadrature(
-            rms, stable=stable, eigh_impl=eigh_impl, quad_jitter=quad_jitter
+            rms, stable=stable, eigh_impl=eigh_impl
         )
         rms = jnp.einsum("...nj,...n->...j", state_cond_raw_moments(nodes), weights)
 
         weights, nodes = moment_quadrature(
-            rms, stable=stable, eigh_impl=eigh_impl, quad_jitter=quad_jitter
+            rms, stable=stable, eigh_impl=eigh_impl
         )
         pdf_vals = measurement_cond_pdf(_expand_y(y), nodes)
         pdf_y = jnp.einsum("...n,...n->...", pdf_vals, weights)
@@ -121,8 +118,7 @@ def moment_filter_cms(
     mean0: FloatScalar,
     ys: Array,
     stable: bool = False,
-    eigh_impl: str = "auto",
-    quad_jitter: float = 0.0,
+    eigh_impl: str = "refined",
 ) -> Tuple[Array, Array, Array]:
     r"""Moment filter with central-moment representation.
 
@@ -141,14 +137,14 @@ def moment_filter_cms(
         cms, mean, nell = carry
 
         weights, nodes = moment_quadrature(
-            cms, mean, stable=stable, eigh_impl=eigh_impl, quad_jitter=quad_jitter
+            cms, mean, stable=stable, eigh_impl=eigh_impl
         )
         mean = jnp.einsum("...n,...n->...", state_cond_mean(nodes), weights)
         cond_cms = state_cond_central_moments(nodes, mean[..., None])
         cms = jnp.einsum("...nj,...n->...j", cond_cms, weights)
 
         weights, nodes = moment_quadrature(
-            cms, mean, stable=stable, eigh_impl=eigh_impl, quad_jitter=quad_jitter
+            cms, mean, stable=stable, eigh_impl=eigh_impl
         )
         pdf_vals = measurement_cond_pdf(_expand_y(y), nodes)
         wp = pdf_vals * weights
@@ -174,8 +170,7 @@ def moment_filter_scms(
     scale0: FloatScalar,
     ys: Array,
     stable: bool = False,
-    eigh_impl: str = "auto",
-    quad_jitter: float = 0.0,
+    eigh_impl: str = "refined",
 ) -> Tuple[Array, Array, Array, Array]:
     r"""Moment filter with scaled-central-moment representation.
 
@@ -207,7 +202,7 @@ def moment_filter_scms(
         scms, mean, scale, nell = carry
 
         weights, nodes = moment_quadrature(
-            scms, mean, scale, stable=stable, eigh_impl=eigh_impl, quad_jitter=quad_jitter
+            scms, mean, scale, stable=stable, eigh_impl=eigh_impl
         )
         cond_means, cond_vars = state_cond_mean_var(nodes)
         mean = jnp.einsum("...n,...n->...", cond_means, weights)
@@ -230,7 +225,7 @@ def moment_filter_scms(
         scms = jnp.einsum("...nj,...n->...j", cond_scms, weights)
 
         weights, nodes = moment_quadrature(
-            scms, mean, scale, stable=stable, eigh_impl=eigh_impl, quad_jitter=quad_jitter
+            scms, mean, scale, stable=stable, eigh_impl=eigh_impl
         )
         pdf_vals = measurement_cond_pdf(_expand_y(y), nodes)
         wp = pdf_vals * weights

@@ -187,9 +187,9 @@ def saddle_point(
     reference selects the nearest real root of the equivalent
     polynomial via companion-matrix eigenvalues
     (``mfs/one_dim/pdf_approximations.py:163-189``) — that relies on
-    the nonsymmetric ``eig``, which XLA does not provide on TPU; Newton
+    the nonsymmetric ``eig``, which XLA provides only on the CPU; Newton
     on the (locally convex) CGF is elementwise over all evaluation
-    points, differentiable, and TPU-native.
+    points, differentiable, and runs on any device.
     """
     num_moments = sms.shape[-1]
     facts = jnp.asarray([math.factorial(n) for n in range(num_moments)], sms.dtype)

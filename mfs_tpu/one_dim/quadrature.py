@@ -3,13 +3,12 @@
 Given the first 2n moments of a distribution, builds the n-point Gauss
 quadrature that matches them exactly (Golub–Welsch via the
 multiplication-operator matrix; see Sarmavuori & Särkkä 2019).  This is
-the TPU-native counterpart of reference ``mfs/one_dim/quadtures.py``:
+the batched counterpart of reference ``mfs/one_dim/quadtures.py``:
 
 - everything accepts an arbitrary leading batch axis: one call computes
   quadratures for thousands of Monte-Carlo trials,
-- the eigendecomposition routes through the in-repo batched Jacobi
-  solver (``mfs_tpu.ops.eigh_batched``), which keeps true f64 on TPU
-  and is differentiable through a custom JVP.
+- the eigendecomposition goes through one of the engines of
+  ``mfs_tpu.ops.eigh`` (default ``"refined"``), each differentiable.
 
 Pipeline per batch element (n x n throughout):
 
@@ -19,14 +18,13 @@ Pipeline per batch element (n x n throughout):
 """
 import functools
 import math
-import warnings
 from typing import Any, Callable, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mfs_tpu.ops.eigh import eigh_batched, eigh_refined, eigh_xla
+from mfs_tpu.ops.eigh import eigh, eigh_batched
 from mfs_tpu.typings import Array, FloatScalar
 from mfs_tpu.utils.linalg import ldl_chol
 
@@ -54,7 +52,6 @@ def moment_quadrature(
     sort_nodes: bool = False,
     stable: bool = False,
     eigh_impl: str = "refined",
-    quad_jitter: float = 0.0,
 ) -> Tuple[Array, Array]:
     """Moment-matched Gauss quadrature from a (batched) moment vector.
 
@@ -74,52 +71,14 @@ def moment_quadrature(
     stable : bool
         Replace the Cholesky factorisation by the LDL-based modified
         Cholesky (PD completion) for ill-conditioned moment matrices.
-    eigh_impl : {"auto", "refined", "xla", "jacobi", "pallas"}
-        Eigensolver backend.  "auto" picks the measured winner for the
-        platform and batch size (``mfs_tpu.ops.dispatch``): the fused
-        Pallas kernel on TPU at production batch sizes, the refined
-        XLA path otherwise.
-    quad_jitter : float
-        Static Tikhonov regularisation of the (equilibrated, unit-
-        diagonal) Gram matrix inside the Pallas kernel paths; used by
-        the divergence-rescue tiers (ignored by the XLA paths, whose
-        ``stable=True`` LDL completion plays the same role).
+    eigh_impl : {"refined", "xla", "jacobi"}
+        Eigensolver engine (``mfs_tpu.ops.eigh.ENGINES``); any other
+        value raises ``ValueError``.
 
     Returns
     -------
     weights : Array (..., n), nodes : Array (..., n)
     """
-    if eigh_impl == "auto":
-        from jax._src.interpreters import batching
-
-        from mfs_tpu.ops.dispatch import resolve_impl_1d
-
-        if isinstance(ms, batching.BatchTracer):
-            # Under an outer jax.vmap the mapped trial axis is invisible
-            # to the trace, so "auto" would undercount the batch and may
-            # pick the wrong impl.  The in-repo filters are batch-first
-            # by construction (no vmap on the trial axis); user code
-            # that vmaps should pass an explicit eigh_impl.
-            warnings.warn(
-                "moment_quadrature(eigh_impl='auto') inside jax.vmap: "
-                "the mapped axis is invisible to the dispatch policy, "
-                "which will undercount the batch. Pass an explicit "
-                "eigh_impl (e.g. 'pallas' on TPU at production batch "
-                "sizes, 'refined' otherwise) or call the filters "
-                "batch-first instead of vmapping the trial axis."
-            )
-        batch = int(np.prod(ms.shape[:-1])) if ms.ndim > 1 else 1
-        eigh_impl = resolve_impl_1d(ms.shape[-1] // 2, batch)
-    if eigh_impl == "pallas":
-        # Fully fused double-f32 Pallas kernel (TPU): replaces the whole
-        # gather/cholesky/solve/eigh pipeline, not just the eigh.  Has a
-        # built-in pivot floor (the ``stable`` completion is implicit).
-        from mfs_tpu.ops.pallas_quadrature import moment_quadrature_fused
-
-        return moment_quadrature_fused(
-            ms, jnp.asarray(mean), jnp.asarray(scale), jitter=quad_jitter
-        )
-
     n = ms.shape[-1] // 2
     g_inds, h_inds = _hankel_indices_np(n)
     G = ms[..., g_inds]
@@ -137,13 +96,7 @@ def moment_quadrature(
     # keep the symmetric eigensolver exact.
     K = 0.5 * (K + jnp.swapaxes(K, -1, -2))
 
-    if eigh_impl == "jacobi":
-        vals, vecs = eigh_batched(K, sort=sort_nodes)
-    elif eigh_impl == "xla":
-        vals, vecs = eigh_xla(K, sort=sort_nodes)
-    else:
-        vals, vecs = eigh_refined(K, sort=sort_nodes)
-
+    vals, vecs = eigh(K, eigh_impl, sort=sort_nodes)
     weights = vecs[..., 0, :] ** 2
     mean = jnp.asarray(mean)
     scale = jnp.asarray(scale)
@@ -216,8 +169,8 @@ def make_derivatives_elementwise(f: Callable, order: int):
     trailing output axes, like the conditional-moment vectors), the
     directional derivative along ``ones_like(x)`` IS the elementwise
     derivative.  Unlike ``jacfwd`` this never materialises a (B, B)
-    Jacobian, so the tower batches over arbitrary leading axes — the
-    TPU-first requirement the reference's scalar tower does not meet.
+    Jacobian, so the tower batches over arbitrary leading axes, which
+    the reference's scalar tower does not.
     Exact (plain forward-mode AD), unlike ``jax.experimental.jet``
     whose expansion rules for ``tanh``/``integer_pow`` carry ~1e-8
     relative error.

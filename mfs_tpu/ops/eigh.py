@@ -1,24 +1,26 @@
-"""Batched small symmetric eigendecomposition for TPU.
+"""Batched small symmetric eigendecomposition for the moment quadrature.
 
-The moment-quadrature step eigendecomposes thousands of tiny (n <= ~32)
-symmetric multiplication-operator matrices per filter step.  XLA's
-``lax.linalg.eigh`` on TPU is a poor fit for this regime (measured on
-v5e: ~46 ms per call for a (2048, 16, 16) f64 batch, and f32 residuals
-around 1e-3 of the matrix norm).  This module implements a
-*parallel-ordered cyclic Jacobi* eigensolver in which
+Every filter step eigendecomposes thousands of tiny (n <= ~32)
+symmetric multiplication-operator matrices.  Three engines are
+offered, chosen by name with ``eigh`` (``ENGINES``):
 
-- every sweep is a static round-robin schedule of n/2 disjoint
-  rotations applied simultaneously,
-- each round applies one orthogonal matrix Q via two batched matmuls
-  (MXU-friendly; true f64 via XLA's emulation, verified ~1e-15), and
-- the sweep count is a compile-time constant (cyclic Jacobi converges
+- ``"refined"`` (the default): an f32 ``lax.linalg.eigh`` seed, one
+  Newton–Schulz re-orthonormalisation and a perturbative f64 polish
+  (``eigh_refined``);
+- ``"xla"``: ``lax.linalg.eigh`` in the input precision (``eigh_xla``);
+- ``"jacobi"``: an in-repo *parallel-ordered cyclic Jacobi* solver
+  (``eigh_batched``) in which every sweep is a static round-robin
+  schedule of n/2 disjoint rotations applied simultaneously, each
+  round is one orthogonal matrix applied by two batched matmuls, and
+  the sweep count is a compile-time constant (cyclic Jacobi converges
   quadratically; the default is calibrated in tests to f64 machine
   precision for n <= 32).
 
-A custom JVP implements the standard eigh differentiation rule so the
-negative log-likelihood stays differentiable through the quadrature
-(the reference relies on JAX's built-in rules: reference
-``mfs/one_dim/quadtures.py:131``, ``dardel/parameter_estimation/mf.py:37-72``).
+The in-repo solvers carry a custom JVP implementing the standard eigh
+differentiation rule, so the negative log-likelihood stays
+differentiable through the quadrature (the reference relies on JAX's
+built-in rules: reference ``mfs/one_dim/quadtures.py:131``,
+``dardel/parameter_estimation/mf.py:37-72``).
 """
 import functools
 from typing import Tuple
@@ -116,11 +118,9 @@ def _jacobi_eigh(a: Array, sweeps: int) -> Tuple[Array, Array]:
         # Golub–Van Loan 8.4.1 rotation choice (smaller-angle root).
         # The skip threshold is *relative* to the local diagonal scale:
         # rotations below f64 epsilon contribute nothing, and bounding
-        # |tau| <= 5e17 keeps tau^2 < 3e35 — important on TPU, where
-        # f64 is emulated as a double-f32 pair whose overflow threshold
-        # is the f32 range (~3.4e38); an absolute-tiny threshold lets
-        # tau^2 overflow and poison the rotation with NaNs.  Padded
-        # slots have app = aqq = apq = 0, hence c = 1, s = 0.
+        # |tau| <= 5e17 keeps tau^2 < 3e35, inside the f32 range too, so
+        # the rotation never overflows into NaNs.  Padded slots have
+        # app = aqq = apq = 0, hence c = 1, s = 0.
         diag_scale = jnp.abs(app) + jnp.abs(aqq)
         small = jnp.abs(apq) <= 1e-18 * diag_scale
         safe_apq = jnp.where(small, 1.0, apq)
@@ -226,15 +226,12 @@ def eigh_xla(a: Array, sort: bool = False) -> Tuple[Array, Array]:
 
 @functools.partial(jax.custom_jvp, nondiff_argnums=(1,))
 def _eigh_refined_core(a: Array, polish_sweeps: int) -> Tuple[Array, Array]:
-    # Stage 1: XLA's eigh *in f32* — the seed only needs ~f32 quality
-    # (the stages below restore f64), and the TPU's emulated-f64 eigh
-    # returns NaN outright on matrices with structurally repeated
-    # eigenvalues (observed on the N-D multiplication operators), while
-    # the f32 path is robust and faster.  Pre-scale by 1/max|a| so
-    # entries outside the f32 range (raw-moment operators of wide-spread
-    # states overflow; extreme scaled modes underflow) stay
-    # representable — eigenvectors are scale-invariant so the seed is
-    # unchanged where no over/underflow occurs.
+    # Stage 1: XLA's eigh *in f32*.  The seed only needs ~f32 quality:
+    # the stages below restore f64.  Pre-scale by 1/max|a| so entries
+    # outside the f32 range (raw-moment operators of wide-spread states
+    # overflow; extreme scaled modes underflow) stay representable —
+    # eigenvectors are scale-invariant so the seed is unchanged where
+    # no over/underflow occurs.
     scale = jnp.max(jnp.abs(a), axis=(-2, -1), keepdims=True)
     scale = jnp.where(scale > 0, scale, 1.0)
     vecs0, _ = jax.lax.linalg.eigh(
@@ -249,16 +246,13 @@ def _eigh_refined_core(a: Array, polish_sweeps: int) -> Tuple[Array, Array]:
     eye = jnp.eye(n, dtype=a.dtype)
     gram = jnp.einsum("...ki,...kj->...ij", vecs0, vecs0)
     vecs0 = jnp.einsum("...ik,...kj->...ij", vecs0, 1.5 * eye - 0.5 * gram)
-    # Stage 2: rotate into the approximate eigenbasis with true-f64
-    # matmuls (TPU f64 emulation is exact to ~1e-15; matmuls are the
-    # expensive emulated op, so stage 2 is built from as few as
-    # possible).
+    # Stage 2: rotate into the approximate eigenbasis with f64 matmuls.
     a1 = jnp.einsum("...ji,...jk,...kl->...il", vecs0, a, vecs0)
     a1 = 0.5 * (a1 + jnp.swapaxes(a1, -1, -2))
 
     if polish_sweeps > 0:
         # Optional cyclic-Jacobi polish (exact quadratic cleanup, but
-        # ~3 matmuls per round — expensive under f64 emulation).
+        # ~3 matmuls per round).
         vals, v1 = _jacobi_eigh(a1, polish_sweeps)
         vecs = jnp.einsum("...ij,...jk->...ik", vecs0, v1)
         return vals, vecs
@@ -297,14 +291,18 @@ def _eigh_refined_core_jvp(polish_sweeps, primals, tangents):
 
 
 def eigh_refined(a: Array, polish_sweeps: int = 0, sort: bool = False) -> Tuple[Array, Array]:
-    """XLA eigh + true-f64 polish — the TPU default.
+    """f32 XLA eigh seed + f64 polish — the filters' default engine.
 
-    Combines XLA's throughput with f64 accuracy: the approximate
-    eigenbasis from ``lax.linalg.eigh`` nearly diagonalises the matrix;
-    a second-order perturbative correction (``polish_sweeps=0``, the
-    default: ~5 f64 matmuls total) or ``polish_sweeps`` cyclic-Jacobi
-    sweeps (exact quadratic cleanup, ~3 matmuls per round) finish the
-    job in true f64.  Differentiable via the standard eigh JVP.
+    The approximate eigenbasis from an f32 ``lax.linalg.eigh`` nearly
+    diagonalises the matrix; one Newton–Schulz step restores f64
+    orthogonality, and a second-order perturbative correction
+    (``polish_sweeps=0``, the default: ~5 f64 matmuls in total) or
+    ``polish_sweeps`` cyclic-Jacobi sweeps (exact quadratic cleanup,
+    ~3 matmuls per round) finish the job in f64.  Within an exactly
+    degenerate cluster (the N-D operators have structurally repeated
+    eigenvalues) the basis is left as the seed gives it; any
+    orthonormal basis of the cluster gives the same quadrature.
+    Differentiable via the standard eigh JVP.
     """
     vals, vecs = _eigh_refined_core(a, polish_sweeps)
     if sort:
@@ -312,3 +310,21 @@ def eigh_refined(a: Array, polish_sweeps: int = 0, sort: bool = False) -> Tuple[
         vals = jnp.take_along_axis(vals, order, axis=-1)
         vecs = jnp.take_along_axis(vecs, order[..., None, :], axis=-1)
     return vals, vecs
+
+
+_ENGINE_FNS = {"refined": eigh_refined, "xla": eigh_xla, "jacobi": eigh_batched}
+ENGINES = tuple(_ENGINE_FNS)
+
+
+def eigh(a: Array, impl: str = "refined", sort: bool = False) -> Tuple[Array, Array]:
+    """Eigendecomposition of a batch of symmetric matrices by engine name.
+
+    ``impl`` is one of ``ENGINES`` (anything else raises
+    ``ValueError``); returns ``(vals, vecs)`` with the eigenvectors as
+    columns, as every engine does.
+    """
+    if impl not in _ENGINE_FNS:
+        raise ValueError(
+            f"unknown eigh_impl {impl!r}; valid engines are {', '.join(ENGINES)}"
+        )
+    return _ENGINE_FNS[impl](a, sort=sort)

@@ -5,20 +5,22 @@ and tallies arithmetic work primitive-by-primitive:
 
 - elementwise arithmetic (add/mul/div/sqrt/exp/tanh/...) counts one
   flop per output element (transcendentals are reported separately in
-  the breakdown so their true VPU cost — several ops each — can be
+  the breakdown so their true cost — several ops each — can be
   judged);
 - ``dot_general`` counts ``2 * out_size * K`` (multiply-add);
 - reductions count one flop per *input* element;
+- the batched dense linear algebra counts the textbook estimates per
+  (n, n) matrix: ``cholesky`` n^3/3, ``triangular_solve`` n^2 per
+  right-hand-side column, ``eigh`` 9 n^3 (symmetric QR with
+  eigenvectors, Golub & Van Loan §8.3);
 - ``lax.scan`` bodies are counted once and multiplied by the trip
   count; ``cond`` takes the most expensive branch;
 - ``pallas_call`` kernels are entered and counted like any other
-  jaxpr (the fused quadrature kernel's double-f32 ladder is therefore
-  fully accounted at its real f32 op count).
+  jaxpr.
 
-The result is *logical* flops at the traced precision: an f64 op on
-TPU costs many native f32 ops (XLA emulates f64), so for roofline
-placement compare f32-path flops against the VPU f32 roof and treat
-the f64 residue as overhead (the breakdown carries per-dtype totals).
+The result is *logical* flops at the traced precision, with per-dtype
+totals in the breakdown, so f64 and f32 work can each be placed against
+their own peak rate.
 
 No reference counterpart — the reference publishes no FLOP or
 utilisation accounting (SURVEY.md §6).
@@ -121,6 +123,18 @@ def _count_jaxpr(jaxpr, tally: Dict[str, float], mult: float = 1.0) -> None:
             bucket = "elementwise" if name in _ELEMENTWISE else "transcendental"
             key = f"{bucket}[{_dtype_of(eqn.outvars[0])}]"
             tally[key] = tally.get(key, 0.0) + mult * out
+        elif name in ("cholesky", "eigh", "triangular_solve"):
+            shape = eqn.invars[0].aval.shape
+            n = shape[-1]
+            mats = int(np.prod(shape[:-2])) if len(shape) > 2 else 1
+            if name == "cholesky":
+                per = n**3 / 3.0
+            elif name == "eigh":
+                per = 9.0 * n**3
+            else:
+                per = float(n * n * _aval_size(eqn.invars[1]) // (mats * n))
+            key = f"linalg[{_dtype_of(eqn.invars[0])}]"
+            tally[key] = tally.get(key, 0.0) + mult * mats * per
         elif name in _ZERO_COST:
             pass
         else:
@@ -145,8 +159,7 @@ def count_flops(fn: Callable, *args: Any, **kwargs: Any) -> Dict[str, Any]:
 
     Returns ``{"total": float, "f32": float, "f64": float,
     "breakdown": {key: flops}, "unknown_primitives": [...]}`` where
-    f32/f64 split by the *traced* element dtype (double-f32 kernel ops
-    are f32; the XLA glue between kernels is f64).
+    f32/f64 split by the *traced* element dtype.
     """
     jaxpr = jax.make_jaxpr(fn)(*args, **kwargs)
     tally: Dict[str, float] = {}

@@ -4,8 +4,8 @@
 sharded over a mesh; ``sharded_nell_grad`` is the distributed
 parameter-estimation step (mean per-trial nell + gradient, with the
 cross-device reduction inserted by XLA from the sharding annotations);
-``rescue_diverged`` is the two-tier robustness pattern (fast kernel
-pass, then re-run only the diverged trials through a robust path).
+``rescue_diverged`` is the tiered robustness pattern (fast pass, then
+re-run only the diverged trials through a robust path).
 """
 from typing import Any, Callable, Dict, Tuple
 
@@ -55,7 +55,7 @@ def sharded_nell_grad(
 
     ``nell_fn(params, ys) -> (B,)`` per-trial negative log likelihoods.
     Params are replicated; trials sharded; the mean over the trial axis
-    becomes one all-reduce over ICI.
+    becomes one all-reduce across the mesh.
     """
     params = replicate(params, mesh)
     ys = shard_trials(ys, mesh, axis=1)
@@ -74,18 +74,17 @@ def rescue_diverged(
     finite_fn: Callable[[Dict[str, Any]], Any],
     trial_axes: Dict[str, int],
 ) -> Tuple[Dict[str, Any], np.ndarray, int]:
-    """Two-tier divergence rescue for batched Monte-Carlo filtering.
+    """Tiered divergence rescue for batched Monte-Carlo filtering.
 
-    Run the whole trial ensemble through ``run_fast`` (e.g. the fused
-    double-f32 Pallas path), then re-run *only the trials that
-    diverged* through ``run_robust`` (e.g. the f64 ``eigh_refined`` +
-    LDL-completion path) and splice the rescued trajectories back in.
-    The failure sets of the two arithmetics overlap but are not nested,
-    so the surviving-divergence count is their intersection — measured
-    below the reference's own f64 divergence rate on the Beneš–
-    Bernoulli N=15 raw-mode cell (171 vs 176 of 1000 trials) at a tiny
-    amortised cost, since the robust pass sees only the diverged
-    subset.  This is the batched analogue of the reference's NaN-trial
+    Run the whole trial ensemble through ``run_fast`` (e.g. the default
+    ``eigh_impl="refined"`` filter), then re-run *only the trials that
+    diverged* through ``run_robust`` (e.g. the ``stable=True``
+    LDL-completion path, or LAPACK f64 on the host) and splice the
+    rescued trajectories back in.  The failure sets of two arithmetics
+    overlap but are not nested, so the surviving-divergence count is
+    their intersection, at a small amortised cost, since the robust
+    pass sees only the diverged subset.  This is the batched analogue
+    of the reference's NaN-trial
     resampling protocol (``dardel/time_profile/mf.py:100-104``), except
     no trial is thrown away.
 
@@ -108,10 +107,8 @@ def rescue_diverged(
 
     ``run_robust`` may also be a *sequence* of drivers, applied in
     order to the (shrinking) set of still-diverged trials — e.g. the
-    jittered fused kernel first (on-TPU, rescued 265/265 of the N=15
-    bench losses at ~1/6 the fast pass's cost, tools/PROBE_RESCUE3
-    .json) and the host LAPACK-f64 + LDL-completion pass as the final
-    fallback.
+    on-device ``stable=True`` path first and the host LAPACK-f64 +
+    LDL-completion pass as the final fallback.
     """
     tiers = (
         list(run_robust) if isinstance(run_robust, (list, tuple))

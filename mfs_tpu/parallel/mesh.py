@@ -2,10 +2,11 @@
 
 The workload is embarrassingly parallel across Monte-Carlo trials
 (each trial's time-scan is independent), so the parallel design is a
-1-D mesh over the trial axis riding ICI: shard the batch, run the same
-program everywhere, no collectives in the hot loop, reduce only at the
-end (e.g. a mean of per-trial nell for parameter estimation — one psum
-inserted by XLA).
+1-D mesh over the trial axis: shard the batch, run the same program
+everywhere, no collectives in the hot loop, reduce only at the end
+(e.g. a mean of per-trial nell for parameter estimation — one psum
+inserted by XLA).  The mesh needs no topology: on cards joined all to
+all (NVLink) every device order is as good as any other.
 
 This replaces the reference's OS-process / Slurm-array trial farming
 (reference: ``dardel/run_benes_bernoulli_mf.sh:26-31``,

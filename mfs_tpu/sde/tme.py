@@ -11,7 +11,7 @@ the TME of order ``p`` approximates the conditional expectation
 
     E[f(X_{t+dt}) | X_t = x] ≈ Σ_{r=0}^{p} dt^r / r!  (A^r f)(x).
 
-Design notes (TPU-first):
+Design notes:
 
 - ``f`` may be *vector- or matrix-valued*: one generator application
   computes all components in a single ``jax.jvp`` pass.  The moment

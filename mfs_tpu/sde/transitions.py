@@ -4,7 +4,7 @@ These produce the model callables consumed by the 1D moment filters,
 computing ``E[phi_n(X_{t+dt}) | X_t = x]`` for *all* moment orders n at
 once (counterpart of reference ``mfs/one_dim/moments.py:141-255``).
 
-TPU-first design: every returned function is *elementwise* in the node
+Design: every returned function is *elementwise* in the node
 array — the TME expansion is applied to the vector-valued function of
 all 2N monomials in one nested-JVP pass, and the Normal-closure modes
 use the O(P) Gaussian moment recurrence.  No vmap over moment orders,

@@ -8,7 +8,7 @@ Capabilities mirror reference ``mfs/utils.py:39-167`` and
   batched mean/variance arrays.  The reference instead evaluates a
   per-order double-factorial formula inside a doubly-nested ``vmap``
   (O(P^2) work and heavy tracing); the recurrence form is what lets the
-  TPU filter evaluate all transition moments for all quadrature nodes
+  filters evaluate all transition moments for all quadrature nodes
   and all trials in one fused elementwise pass.
 """
 import math
@@ -207,8 +207,7 @@ def discretise_lti_sde(A: Array, B: Array, dt: FloatScalar):
     d = A.shape[0]
     concrete = not (isinstance(A, jax.core.Tracer) or isinstance(B, jax.core.Tracer) or isinstance(dt, jax.core.Tracer))
     if concrete:
-        # Trace-time constants: use SciPy's expm — also sidesteps the
-        # missing f64 LuDecomposition on TPU that jax's expm needs.
+        # Trace-time constants: use SciPy's expm on the host.
         import scipy.linalg
 
         An, Bn = np.asarray(A, np.float64), np.asarray(B, np.float64)

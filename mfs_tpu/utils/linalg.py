@@ -1,7 +1,7 @@
 """Dense linear-algebra helpers for the moment core.
 
 Batched-by-construction counterparts of reference ``mfs/utils.py:340-538``:
-every routine accepts arbitrary leading batch axes, because the TPU
+every routine accepts arbitrary leading batch axes, because the batched
 design amortises tiny (n <= ~32) factorisations over thousands of
 Monte-Carlo trials.
 """
@@ -63,7 +63,10 @@ def ldl_chol(mat: Array, eps: float = None) -> Array:
     else:
         eps_val = eps
     L, d = ldl(mat)
-    scale = jnp.where(d < 0, eps_val, jnp.sqrt(jnp.maximum(d, 0.0)))
+    # The inner where keeps sqrt away from the clamped pivots: sqrt's
+    # infinite slope at 0 would turn their zero cotangent into nan.
+    clamped = d < 0
+    scale = jnp.where(clamped, eps_val, jnp.sqrt(jnp.where(clamped, 1.0, d)))
     return L * scale[..., None, :]
 
 

@@ -30,16 +30,17 @@ def main():
     p.add_argument("--mode", default="raw")
     p.add_argument("--closure", default="tme-normal")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--impl-suffix", default="", help="e.g. _pallas")
+    p.add_argument("--impl-suffix", default="", help="npz suffix of the cell")
+    p.add_argument("--summary", default=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "experiments", "SUMMARY_benes_bernoulli.json"),
+        help="per-N aggregates used where no npz artifact exists")
     args = p.parse_args()
 
-    # Summary fallback (VERDICT r04 item 7): a fresh clone carries the
-    # per-N aggregates in SUMMARY_benes_bernoulli.json even when the
-    # raw .npz artifacts have not been regenerated on a TPU host.
+    # Summary fallback: the per-N aggregates of an earlier run render
+    # the figure when the raw .npz artifacts are absent.
     summary_rows = {}
-    spath = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "experiments",
-        "SUMMARY_benes_bernoulli.json")
+    spath = args.summary
     if os.path.exists(spath):
         import json
 

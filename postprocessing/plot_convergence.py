@@ -27,17 +27,18 @@ def main():
                    default=[100, 1000, 10000],
                    help="overlay PF-foil errors at these particle counts "
                         "(skipped when the artifact is absent)")
+    p.add_argument("--summary", default=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "experiments", "SUMMARY_convergence.json"),
+        help="per-N aggregates used where no npz artifact exists")
     args = p.parse_args()
 
-    # Summary fallback (VERDICT r04 item 7): render from the per-N
-    # aggregates in SUMMARY_convergence.json when the raw .npz
-    # artifacts have not been regenerated on a TPU host.
+    # Summary fallback: the per-N aggregates of an earlier run render
+    # the figure when the raw .npz artifacts are absent.
     import json
 
     summary_rows = {}
-    spath = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "experiments",
-        "SUMMARY_convergence.json")
+    spath = args.summary
     if os.path.exists(spath):
         with open(spath) as f:
             for r in json.load(f).get("rows", []):

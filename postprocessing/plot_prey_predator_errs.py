@@ -26,7 +26,7 @@ def main():
     p.add_argument("--tag", default="",
                    help="artifact-name suffix written by "
                         "experiments/prey_predator.py for non-default "
-                        "transition/eigh (e.g. _poly_pallas)")
+                        "transition/eigh (e.g. _poly_jacobi)")
     args = p.parse_args()
 
     fig, axes = plt.subplots(1, 2, figsize=(10, 3.8), sharey=True)

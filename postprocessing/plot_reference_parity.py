@@ -1,10 +1,10 @@
-"""Side-by-side parity figure: our TPU filter engine vs the reference's
+"""Side-by-side parity figure: our filter engine vs the reference's
 own ``moment_filter_*`` (its code, CPU f64) on identical trials.
 
 Reads ``experiments/SUMMARY_reference_parity.json`` (written by
 ``experiments/parity_summary.py``) and draws, per moment mode x
 closure: CF sup-distance vs N for both engines, plus divergence counts
-— the round-2 VERDICT's "provably matches-or-beats" evidence, the
+— the "matches-or-beats" evidence, the
 comparison the reference's Fig. 4 pipeline
 (``reproduce_paper_plots/plot_benes_bernoulli_errs_and_times.py``)
 never makes because it has only one engine.
@@ -52,7 +52,7 @@ def main():
                 continue
             Ns = [r["N"] for r in rs]
             ax.semilogy(Ns, [r["ours"][args.metric] for r in rs],
-                        "o-", label="ours (TPU, fused Pallas)")
+                        "o-", label="ours")
             ax.semilogy(Ns, [r["ref"][args.metric] for r in rs],
                         "s--", label="reference code (CPU f64)")
             for r in rs:

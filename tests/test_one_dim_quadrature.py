@@ -120,26 +120,3 @@ def test_quadrature_weights_sum_to_one():
     rms = _gaussian_rms(16)
     w, _ = moment_quadrature(rms)
     np.testing.assert_allclose(float(jnp.sum(w)), 1.0, rtol=1e-10)
-
-
-def test_auto_dispatch_warns_under_vmap():
-    """'auto' under jax.vmap cannot see the mapped axis: it must warn
-    (VERDICT r04 item 9) and still produce the correct rule."""
-    import warnings as _w
-
-    import pytest as _pytest
-
-    from mfs_tpu.utils.gaussian import normal_raw_moments_all
-
-    ms = jnp.stack(
-        [normal_raw_moments_all(0.0, s, 8) for s in (0.8, 1.0, 1.3)]
-    )
-    with _pytest.warns(UserWarning, match="vmap"):
-        w_v, x_v = jax.vmap(
-            lambda m: moment_quadrature(m, eigh_impl="auto")
-        )(ms)
-    with _w.catch_warnings():
-        _w.simplefilter("error")  # batch-first call must NOT warn
-        w_b, x_b = moment_quadrature(ms, eigh_impl="auto")
-    np.testing.assert_allclose(np.asarray(w_v), np.asarray(w_b), atol=1e-10)
-    np.testing.assert_allclose(np.asarray(x_v), np.asarray(x_b), atol=1e-10)

@@ -1,9 +1,9 @@
-"""Auxiliary ops: FLOP accounting, dispatch policy, SMC options."""
+"""Auxiliary ops: FLOP accounting, SMC options."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from mfs_tpu.ops.dispatch import resolve_impl_1d, resolve_impl_nd
 from mfs_tpu.ops.flops import count_flops
 
 
@@ -18,9 +18,33 @@ def test_count_flops_matmul_and_scan():
     assert not r["unknown_primitives"]
 
 
+@pytest.mark.parametrize(
+    "prim, flops",
+    [
+        # 3 matrices of 4x4: n^3/3, n^2 per rhs column (4 columns), 9 n^3
+        ("cholesky", 3 * 64 / 3),
+        ("triangular_solve", 3 * 16 * 4),
+        ("eigh", 3 * 9 * 64),
+    ],
+)
+def test_count_flops_batched_linalg(prim, flops):
+    a = jnp.broadcast_to(jnp.eye(4) * 2.0, (3, 4, 4))
+    fn = {
+        "cholesky": jax.lax.linalg.cholesky,
+        "triangular_solve": lambda m: jax.lax.linalg.triangular_solve(
+            m, m, left_side=True, lower=True
+        ),
+        "eigh": jax.lax.linalg.eigh,
+    }[prim]
+    r = count_flops(fn, a)
+    assert not r["unknown_primitives"]
+    assert r["breakdown"]["linalg[float64]"] == flops
+
+
 def test_count_flops_enters_filter_step():
-    """The full pallas-dispatch filter traces with no unknown
-    primitives and a plausible per-trial count."""
+    """The full filter on the default ``refined`` engine traces with no
+    unknown primitives and a plausible per-trial count (the engine's
+    f32 eigh seed and f64 polish both show in the per-dtype split)."""
     from mfs_tpu.models import benes_bernoulli
     from mfs_tpu.one_dim.filtering import moment_filter_cms
     from mfs_tpu.sde import sde_cond_moments_tme_normal
@@ -33,7 +57,7 @@ def test_count_flops_enters_filter_step():
     ic = model.init_cond
     fn = lambda c0, m0, y: moment_filter_cms(
         trans.cms, trans.mean, model.measurement_cond_pdf, c0, m0, y,
-        eigh_impl="pallas",
+        eigh_impl="refined",
     )
     r = count_flops(
         fn,
@@ -51,37 +75,6 @@ def test_count_flops_enters_filter_step():
         jnp.zeros((2 * T, B)),
     )
     np.testing.assert_allclose(r2["total"], 2 * r["total"], rtol=1e-6)
-
-
-def test_dispatch_resolution():
-    # explicit choice passes through untouched
-    assert resolve_impl_1d(15, 4096, "jacobi") == "jacobi"
-    assert resolve_impl_nd(28, 4, "pallas") == "pallas"
-    # on CPU (this suite), auto always resolves to refined
-    assert resolve_impl_1d(15, 4096) == "refined"
-    assert resolve_impl_nd(6, 4096) == "refined"
-
-
-def test_dispatch_1d_order_gate(monkeypatch):
-    """auto never routes an order beyond the measured n <= 32 compile/
-    win range to the 1D kernel (VERDICT r04 item 4)."""
-    import mfs_tpu.ops.dispatch as dispatch
-
-    monkeypatch.setattr(dispatch, "_default_platform", lambda: "tpu")
-    assert dispatch.resolve_impl_1d(15, 4096) == "pallas"
-    assert dispatch.resolve_impl_1d(32, 512) == "pallas"  # measured good
-    assert dispatch.resolve_impl_1d(33, 4096) == "refined"  # gated
-    assert dispatch.resolve_impl_1d(64, 4096) == "refined"
-    # the ND gate: monolithic to s=28, staged builder to s=45 (both
-    # measured), refined beyond
-    assert dispatch.resolve_impl_nd(28, 256) == "pallas"
-    assert dispatch.resolve_impl_nd(36, 256) == "pallas"  # staged range
-    assert dispatch.resolve_impl_nd(45, 256) == "pallas"
-    assert dispatch.resolve_impl_nd(66, 256) == "pallas"  # 2D N=11
-    assert dispatch.resolve_impl_nd(67, 256) == "refined"  # unmeasured
-    # d=3: tiny bases lose to refined (measured), s=10 wins
-    assert dispatch.resolve_impl_nd(4, 64, d=3) == "refined"
-    assert dispatch.resolve_impl_nd(10, 64, d=3) == "pallas"
 
 
 def test_bootstrap_remat_chunk_unchanged_forward():
@@ -144,21 +137,3 @@ def test_particle_filter_out_fn_reduction():
     np.testing.assert_allclose(
         np.asarray(red[1]), np.asarray(jnp.var(full, axis=-1)), rtol=1e-10
     )
-
-
-def test_nd_k_builder_vmem_gate():
-    """s=45 (d=2) exceeds the K-builder's VMEM budget: loud error (the
-    remote Mosaic compile crashes at that size), and the auto policy
-    routes such sizes to the XLA path."""
-    import pytest
-
-    from mfs_tpu.multi_dims.multi_indices import (
-        gram_and_hankel_indices_graded_lexico,
-    )
-    from mfs_tpu.ops.pallas_quadrature_nd import nd_k_pallas
-
-    inds = gram_and_hankel_indices_graded_lexico(9, 2)  # s = 45
-    assert inds.shape[1] == 45
-    ms = jnp.ones((4, 171))
-    with pytest.raises(ValueError, match="VMEM"):
-        nd_k_pallas(ms, inds)

@@ -134,6 +134,15 @@ def test_ldl_chol_completes_indefinite():
     assert np.all(np.linalg.eigvalsh(recon) >= 0)
 
 
+def test_ldl_chol_reverse_mode_finite_on_clamped_pivot():
+    """A clamped (negative) pivot must give finite reverse-mode
+    cotangents: sqrt's infinite slope at 0 must not meet the zero
+    cotangent of the unused branch."""
+    mat = jnp.array([[1.0, 2.0], [2.0, 1.0]])  # pivots 1, -3
+    g = jax.grad(lambda m: jnp.sum(ldl_chol(m)))(mat)
+    assert np.all(np.isfinite(np.asarray(g)))
+
+
 def test_lanczos_full_rank_reconstruction():
     rng = np.random.RandomState(2)
     a = rng.randn(7, 7)

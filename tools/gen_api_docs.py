@@ -47,10 +47,6 @@ MODULES = [
     "mfs_tpu.models.one_dim",
     "mfs_tpu.models.multi_dims",
     "mfs_tpu.ops.eigh",
-    "mfs_tpu.ops.doublefloat",
-    "mfs_tpu.ops.pallas_quadrature",
-    "mfs_tpu.ops.pallas_quadrature_nd",
-    "mfs_tpu.ops.dispatch",
     "mfs_tpu.ops.flops",
     "mfs_tpu.parallel.mesh",
     "mfs_tpu.parallel.ensemble",
